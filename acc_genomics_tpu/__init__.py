@@ -1,4 +1,4 @@
-"""acc_genomics_tpu — TPU-native genomics kernel engine.
+"""acc_genomics_tpu — accelerator genomics kernel engine, run on NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 falcon-computing/acc_genomics (an FPGA genomics kernel library):
@@ -8,10 +8,10 @@ falcon-computing/acc_genomics (an FPGA genomics kernel library):
   * SW       — full Smith-Waterman with backtrack -> CIGAR (GATK HC realignment)
   * EXTEND   — banded Smith-Waterman seed extension (BWA-MEM mem_chain2aln)
 
-Layering (TPU-first, not a port):
+Layering (a redesign, not a port):
   ops/       batched compute kernels: NumPy oracles (golden), pure-XLA impls,
-             and Pallas TPU kernels for the hot paths
-  engine/    single-chip engine: length bucketing, packing, jit caching,
+             and a Pallas (Triton) GPU kernel for PairHMM
+  engine/    single-device engine: length bucketing, packing, jit caching,
              cost-model dispatch, fp64 underflow recompute
   parallel/  device-mesh scaling: shard_map data/sequence parallel dispatch
   io/        reference-format corpora parsers and synthetic generators

@@ -1,14 +1,14 @@
 """Length bucketing and batch shaping.
 
-The TPU replacement for the reference's dispatch layer: length sorting,
+The device replacement for the reference's dispatch layer: length sorting,
 segmentation into device-shaped tiles, and trip-count load balancing
 (pairhmm/xlnx/host/FalconPairHMM.cpp sortReads/distributeReads and
 pairhmm/interface/PairHMMFpgaInterface.cpp dist_reads_to_pu).
 
-On TPU there are no PUs to balance; instead the job is to pick padded
-(rows, cols) bucket shapes that minimise wasted cells while keeping the
-number of distinct compiled shapes small, then pad each bucket's batch
-to full 128-lane blocks.
+On the device there are no PUs to balance; instead the job is to pick
+padded (rows, cols) bucket shapes that minimise wasted cells while
+keeping the number of distinct compiled shapes small, then pad each
+bucket's batch to whole lane blocks.
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def plan_buckets(
 
 
 def trip_count(rows: int, cols: int) -> int:
-    """Analytical per-block cost of one 128-lane kernel invocation: the
-    diagonal count times the wavefront height (the TPU analog of the
+    """Analytical per-block cost of one kernel block: the diagonal
+    count times the wavefront height (the device analog of the
     reference's trip_count formula used for PU balancing,
     PairHMMFpgaInterface.cpp:97)."""
     return (rows + cols) * rows

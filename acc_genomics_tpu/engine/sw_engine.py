@@ -1,10 +1,11 @@
-"""HTC Smith-Waterman engine: bucket -> device fill -> native CIGAR walk.
+"""HTC Smith-Waterman engine: bucket -> device fill + walk -> decode.
 
 Replaces the reference dispatch gate FalconSWFPGA_run
 (htc-sw/host/FalconSW_FPGA.cpp:16-94): sequences beyond the largest
-bucket fall back to the host oracle (the reference routes len >= 512 to
-AVX); everything else runs the batched device fill with backtrack on the
-native walker (Python fallback).
+bucket run on the native host engine (the reference routes len >= 512 to
+AVX); everything else runs the batched XLA fill and the device backtrack
+walker (ops/sw/walker.py), so the btrack matrix never leaves the device:
+only the CIGAR element buffers do, in one transfer per call.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ import numpy as np
 
 from acc_genomics_tpu import native
 from acc_genomics_tpu.config import SWConfig
-from acc_genomics_tpu.ops.sw.jax_impl import sw_backtrack_slim, sw_fill
 from acc_genomics_tpu.ops.sw.reference import sw_align_oracle
-from acc_genomics_tpu.utils.timer import Timer
+from acc_genomics_tpu.ops.sw.walker import (
+    sw_align_batch_decode,
+    sw_align_batch_launch,
+)
 
 
 class SWEngine:
@@ -28,17 +31,16 @@ class SWEngine:
         self,
         config: SWConfig = SWConfig(),
         device: Optional[jax.Device] = None,
-        use_pallas: Optional[bool] = None,
         mesh=None,
     ):
         self.config = config
         self.device = device or jax.devices()[0]
         self.mesh = mesh
-        self.use_pallas = (
-            self.device.platform == "tpu" if use_pallas is None else use_pallas
-        )
         self.params = config.params()
-        self.stats = {"pairs": 0, "host_fallback": 0, "cells": 0}
+        # walk_overflow: in-bucket pairs whose CIGAR overflowed the device
+        # walker's element buffer and were rerun on the host
+        self.stats = {"pairs": 0, "host_fallback": 0, "walk_overflow": 0,
+                      "cells": 0, "device_calls": 0, "d2h_bytes": 0}
 
     def _bucket(self, n: int) -> Optional[int]:
         for b in self.config.seq_buckets:
@@ -82,8 +84,8 @@ class SWEngine:
                     max_elems=max(self.config.max_seq_len, 1536),
                 )
                 for j, k in enumerate(host_idx):
-                    res = walked[j] if walked is not None else None
-                    if res is None:  # no native lib / element overflow
+                    res = walked[j]
+                    if res is None:  # element overflow
                         res = sw_align_oracle(
                             refs[k], alts[k], strategy, params=self.params
                         )
@@ -99,98 +101,38 @@ class SWEngine:
             host_thread.start()
 
         # segment each bucket group into device launches of at most
-        # max_batch pairs (the reference's 260-alt batch cap resized
-        # for TPU; htc-sw/host/common.h:14)
+        # max_batch pairs (the reference's 260-alt batch cap, resized for
+        # a wide device; htc-sw/host/common.h:14); launch every chunk's
+        # fill + walk, then fetch all element buffers as ONE transfer
         seg = max(int(self.config.max_batch), 1)
-        chunks = [
-            (key, idxs[lo : lo + seg])
-            for key, idxs in groups.items()
-            for lo in range(0, len(idxs), seg)
-        ]
-
-        if self.use_pallas:
-            # Pallas path: launch EVERY group's fill + device walk, then
-            # fetch all packed element buffers as one concatenated D2H
-            # transfer (device_get pays a round trip per leaf)
-            from acc_genomics_tpu.ops.sw.kernel import (
-                sw_align_batch_decode,
-                sw_align_batch_launch,
-            )
-
-            pend = []
-            for (rows, cols), idxs in chunks:
-                grefs = [refs[k] for k in idxs]
-                galts = [alts[k] for k in idxs]
-                packed, perm = sw_align_batch_launch(
+        pend = []
+        for (rows, cols), idxs in groups.items():
+            for lo in range(0, len(idxs), seg):
+                chunk = idxs[lo : lo + seg]
+                grefs = [refs[k] for k in chunk]
+                galts = [alts[k] for k in chunk]
+                packed = sw_align_batch_launch(
                     grefs, galts, strategy, rows, cols, mesh=self.mesh,
-                    params=self.params,
+                    params=self.params, device=self.device,
                 )
-                pend.append((idxs, grefs, galts, packed, perm))
-            chunks = []
-            if pend:
-                allpacked = np.asarray(
-                    jnp.concatenate([p[3] for p in pend], axis=1)
+                self.stats["device_calls"] += 1
+                pend.append((chunk, grefs, galts, packed))
+        if pend:
+            allpacked = np.asarray(
+                jnp.concatenate([p[3] for p in pend], axis=1)
+            )
+            self.stats["d2h_bytes"] += allpacked.nbytes
+            col = 0
+            for chunk, grefs, galts, packed in pend:
+                w = packed.shape[1]
+                walked = sw_align_batch_decode(
+                    allpacked[:, col : col + w], grefs, galts, strategy,
+                    params=self.params, stats=self.stats,
                 )
-                col = 0
-                for idxs, grefs, galts, packed, perm in pend:
-                    w = packed.shape[1]
-                    walked = sw_align_batch_decode(
-                        allpacked[:, col : col + w], perm, grefs, galts,
-                        strategy, params=self.params,
-                    )
-                    col += w
-                    for j, k in enumerate(idxs):
-                        self.stats["cells"] += len(refs[k]) * len(alts[k])
-                        out[k] = walked[j]
-        for (rows, cols), idxs in chunks:
-            # pad the batch to the next power of two (>= 8) so jit caches a
-            # small number of shapes instead of one per batch size
-            bsz = 8
-            while bsz < len(idxs):
-                bsz *= 2
-            ref_tm = np.full((rows, bsz), 255, np.int32)
-            alt_tm = np.full((cols, bsz), 255, np.int32)
-            reflen = np.zeros(bsz, np.int32)
-            altlen = np.zeros(bsz, np.int32)
-            for j, k in enumerate(idxs):
-                r, a = refs[k], alts[k]
-                ref_tm[: len(r), j] = r
-                alt_tm[: len(a), j] = a
-                reflen[j] = len(r)
-                altlen[j] = len(a)
-                self.stats["cells"] += len(r) * len(a)
-            with Timer("sw.fill"):
-                bt, lastrow, altcol = sw_fill(
-                    jax.device_put(jnp.asarray(ref_tm), self.device),
-                    jax.device_put(jnp.asarray(alt_tm), self.device),
-                    jax.device_put(jnp.asarray(reflen), self.device),
-                    jax.device_put(jnp.asarray(altlen), self.device),
-                    strategy, self.params,
-                )
-                bt = np.asarray(bt).transpose(2, 0, 1)
-                lastrow = np.asarray(lastrow).T
-                altcol = np.asarray(altcol).T
-            with Timer("sw.backtrack"):
-                walked = native.cigar_walk(
-                    bt, lastrow, altcol, reflen, altlen, strategy,
-                    max_elems=self.config.max_seq_len,
-                )
-                if walked is None:
-                    walked = [
-                        sw_backtrack_slim(
-                            bt[j], lastrow[j], altcol[j],
-                            int(reflen[j]), int(altlen[j]), strategy,
-                        )
-                        for j in range(bsz)
-                    ]
-            for j, k in enumerate(idxs):
-                res = walked[j]
-                if res is None:  # native element overflow: host rerun
-                    res = sw_backtrack_slim(
-                        bt[j], lastrow[j], altcol[j],
-                        int(reflen[j]), int(altlen[j]), strategy,
-                    )
-                out[k] = res
+                col += w
+                for k, res in zip(chunk, walked):
+                    self.stats["cells"] += len(refs[k]) * len(alts[k])
+                    out[k] = res
         if host_thread is not None:
             host_thread.join()
             if host_err:

@@ -53,8 +53,8 @@ class HaplotypeCallerCore:
         """Batch many active regions into single engine calls.
 
         regions: [(reference_window, haplotypes, reads)].  Region-at-a-time
-        dispatch starves a TPU batch; coalescing all regions' SW pairs and
-        (read, hap) pairs into one device batch each is the TPU analog of
+        dispatch starves a device batch; coalescing all regions' SW pairs
+        and (read, hap) pairs into one device batch each is the analog of
         the reference worker tiling many requests into device-sized
         batches (PairHMMWorker.cpp:217-222).
         """

@@ -1,7 +1,7 @@
 // Native host runtime for acc_genomics_tpu.
 //
 // The reference implements its host runtime in C++ (packers, schedulers,
-// OpenCL glue); the TPU framework keeps the device path in XLA/Pallas and
+// OpenCL glue); this engine keeps the device path in XLA/Pallas and
 // implements the host hot loops here:
 //
 //   * sais_build       — SA-IS suffix array construction (linear time),
@@ -28,6 +28,19 @@
 #include <cstring>
 #include <climits>
 #include <vector>
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
+// Threads the parallel loops below run on: omp_get_max_threads() when
+// the library was built with OpenMP, 0 when it was built serially.
+extern "C" int32_t accnative_omp_threads() {
+#ifdef _OPENMP
+  return omp_get_max_threads();
+#else
+  return 0;
+#endif
+}
 
 // ---------------------------------------------------------------------------
 // SA-IS suffix array construction (alphabet size K, text values in [0, K)).
@@ -878,7 +891,7 @@ void sw_extend_batch_native(
 }
 
 // ---------------------------------------------------------------------------
-// PairHMM byte-plane packing: the engine's TPU path uploads raw uint8
+// PairHMM byte-plane packing: the engine's device path uploads raw uint8
 // qual/base planes and computes coefficients on device, so packing is
 // pure memcpy + fill — the host side of pack_pairhmm_quals
 // (ops/pairhmm/pack.py) without the Python per-pair loop.
@@ -936,7 +949,7 @@ void pairhmm_pack_quals(
   // at batch-sized strides.  Tiles go through a 16x16 SSE unpack
   // network where available (13x the scalar strided-store loop this
   // replaced: byte stores at batch stride were 18.5 ms/plane, SSE
-  // tiles 1.35 ms, memset floor 0.17 — see round-3 PERF_NOTES); the
+  // tiles 1.35 ms, memset floor 0.17 on the host); the
   // scalar tail/fallback keeps stores contiguous along lanes (7.6x).
   const int TILE = 64;
   struct Plane { const uint8_t* src; uint8_t* dst; int64_t nrow; uint8_t pad; };
@@ -988,70 +1001,6 @@ void pairhmm_pack_quals(
 #pragma omp barrier
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// PairHMM coefficient expansion: time-major uint8 qual planes (from
-// pairhmm_pack_quals) -> time-major f32 coefficient planes + int32 code
-// planes.  Every stream is read/written SEQUENTIALLY — the original
-// per-pair packer's column-scatter writes were a cache miss per element
-// at batch-sized strides (measured ~1 s per 16K-pair batch).
-// big_f rows: p_mm p_gapm p_mx p_xx p_my p_yy em_match em_mis (8*rows)
-// then y0 in row 8*rows.  big_i rows: rs codes (rows) then hap_ext.
-// ---------------------------------------------------------------------------
-
-void pairhmm_expand_quals(
-    const uint8_t* oq, const uint8_t* oi, const uint8_t* od,
-    const uint8_t* oc, const uint8_t* ors, const uint8_t* ohap,
-    const int32_t* lens, const int32_t* hlens,
-    int32_t rows, int32_t cols, int32_t bp,
-    const float* ph2pr, const float* m2m, float initial_constant,
-    float* big_f, int32_t* big_i) {
-  const int64_t stride = bp;
-  const int64_t plane = (int64_t)rows * stride;
-  float* p_mm = big_f;
-  float* p_gapm = big_f + plane;
-  float* p_mx = big_f + 2 * plane;
-  float* p_xx = big_f + 3 * plane;
-  float* p_my = big_f + 4 * plane;
-  float* p_yy = big_f + 5 * plane;
-  float* em_m = big_f + 6 * plane;
-  float* em_x = big_f + 7 * plane;
-  float* y0 = big_f + 8 * plane;
-  int32_t* rs_out = big_i;
-  int32_t* hap_out = big_i + plane;
-#pragma omp parallel for schedule(static)
-  for (int32_t r = 0; r < rows; ++r) {
-    int64_t off = (int64_t)r * stride;
-    for (int64_t b = 0; b < bp; ++b) {
-      int64_t at = off + b;
-      if (r < lens[b]) {
-        int qi = oi[at] & 127, qd = od[at] & 127, qc = oc[at] & 127,
-            qq = oq[at] & 127;
-        int lo = qi < qd ? qi : qd;
-        int hi = qi < qd ? qd : qi;
-        p_mm[at] = m2m[((int64_t)hi * (hi + 1) >> 1) + lo];
-        p_gapm[at] = 1.0f - ph2pr[qc];
-        p_mx[at] = ph2pr[qi];
-        p_xx[at] = ph2pr[qc];
-        p_my[at] = ph2pr[qd];
-        p_yy[at] = ph2pr[qc];
-        em_m[at] = 1.0f - ph2pr[qq];
-        em_x[at] = ph2pr[qq] / 3.0f;
-      } else {  // absorbing row
-        p_mm[at] = 0.f; p_gapm[at] = 0.f;
-        p_mx[at] = 1.f; p_xx[at] = 1.f;
-        p_my[at] = 0.f; p_yy[at] = 0.f;
-        em_m[at] = 0.f; em_x[at] = 0.f;
-      }
-      rs_out[at] = ors[at];
-    }
-  }
-  int64_t ndiag = (int64_t)rows + cols;
-#pragma omp parallel for schedule(static)
-  for (int64_t k = 0; k < ndiag * stride; ++k) hap_out[k] = ohap[k];
-  for (int64_t b = 0; b < bp; ++b)
-    y0[b] = hlens[b] > 0 ? initial_constant / (float)hlens[b] : 0.f;
 }
 
 }  // extern "C" (reopened below for the PairHMM forward exports)

@@ -6,7 +6,7 @@ One lane per extension task; a lax.scan walks target rows.  Each row:
   the reference becomes a (Q+2, B) carry),
 * E is elementwise, F's within-row chain
       f(j) = max_{k<j in band} max(M(k)-oe_ins, 0) - (j-1-k)*e_ins
-  is a running max of ``t(k) + k*e_ins`` (cummax along sublanes),
+  is a running max of ``t(k) + k*e_ins`` (cummax along the row axis),
 * the adaptive band [beg, end) is a pair of per-lane registers; all row
   math is masked to the band, reproducing the reference's zero-run
   narrowing, break conditions, and two-round band doubling exactly
@@ -37,8 +37,7 @@ NEG = jnp.int32(-(1 << 29))
 
 def _cummax_log(u):
     """Inclusive running max along axis 0 as a log-depth shift-max ladder
-    (the Kogge-Stone max_scan of htc-sw/host/FalconSW_AVX.cpp:38-300;
-    lax.cummax lowers to a slow sequential form on TPU)."""
+    (the Kogge-Stone max_scan of htc-sw/host/FalconSW_AVX.cpp:38-300)."""
     n = u.shape[0]
     sh = 1
     while sh < n:
@@ -110,9 +109,9 @@ def sw_extend_batch(
             h1_beg = jnp.where(at0, jnp.maximum(h1_init, 0), 0)
 
             in_band = (jj >= beg[None, :]) & (jj < end[None, :])
-            # per-cell score mat[t_i, q_j], computed arithmetically (a 2D
-            # table gather per row is pathologically slow on TPU): match
-            # +1, mismatch -4, either-ambiguous -1 (bwa_fill_scmat)
+            # per-cell score mat[t_i, q_j], computed arithmetically (no
+            # 2D table gather per row): match +1, mismatch -4,
+            # either-ambiguous -1 (bwa_fill_scmat)
             tb = t_i[None, :]
             amb = (tb >= 4) | (q_tm >= 4)
             sc = jnp.where(

@@ -1,15 +1,15 @@
 """Pure-XLA batched PairHMM forward pass.
 
 A row-wise lax.scan over the read dimension in **time-major layout**:
-all state is (H+1, B) with the batch on the 128-lane axis and the hap
-column dimension on sublanes, so every shift is a cheap sublane
-operation and nothing is ever transposed on device.  M and X rows are
+all state is (H+1, B) with the batch on the minor (lane) axis and the
+hap column dimension on the major axis, so every shift is a row offset
+and nothing is ever transposed on device.  M and X rows are
 elementwise functions of the previous row; the within-row Y recurrence
 ``y[c] = a[c] + pYY * y[c-1]`` is a first-order linear recurrence
 evaluated with ``lax.associative_scan`` (log-depth, lane-parallel) —
 the XLA analog of the reference AVX stripe kernel's shift-carry
 (pairhmm/xlnx/host/avx-pairhmm-template.h:210-346), redesigned for a
-1024-lane vector machine instead of 8-lane AVX.
+batch-wide vector machine instead of 8-lane AVX.
 
 Variable lengths are handled by the packed-batch absorbing-row layout
 (see pack.py) so the whole scan is dense with no per-pair control flow.

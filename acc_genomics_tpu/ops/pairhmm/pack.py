@@ -2,8 +2,8 @@
 
 The reference feeds its device a flat bit-packed bundle with per-PU
 trip-count load balancing (pairhmm/interface/PairHMMFpgaInterface.cpp:
-pack_fpga_input / dist_reads_to_pu).  The TPU analog is a dense padded
-batch of per-row transition/emission coefficients, shaped for the VPU:
+pack_fpga_input / dist_reads_to_pu).  The device analog is a dense
+padded batch of per-row transition/emission coefficients:
 
 * reads are padded to a bucketed row count R with **absorbing rows**
   (pMM=pGapM=pMY=pYY=0, pMX=pXX=1).  An absorbing row turns X into a
@@ -17,11 +17,10 @@ batch of per-row transition/emission coefficients, shaped for the VPU:
   contribute exactly nothing (M stays 0, X stays 0 down the column).
 
 All per-row arrays are laid out **time-major (R, B)** on the host: the
-row scan and the Pallas diagonal kernel both consume (rows, lanes)
-blocks directly, so no transposes ever run on the device (XLA TPU
-transposes of these shapes measured ~30x the kernel cost).  The batch
-is padded to a multiple of 128 lanes with inert pairs (all-absorbing
-rows, y0 = 0 -> result 0).
+row scan and the Pallas wavefront kernel both consume (rows, lanes)
+blocks directly, so no transposes run on the device.  The batch is
+padded to a multiple of 128 lanes with inert pairs (all-absorbing rows,
+y0 = 0 -> result 0).
 """
 
 from __future__ import annotations
@@ -127,15 +126,13 @@ def pack_pairhmm_batch(
         b_pad = n_real
         if pad_lanes and b_pad % lane_multiple:
             b_pad += lane_multiple - b_pad % lane_multiple
-        packed = native.pairhmm_pack_native(
+        arrs, rs_out, hap_ext, y0, rslen, haplen = native.pairhmm_pack_native(
             testcases, rows, cols, ctx.ph2pr, ctx.match_to_match,
             ctx.initial_constant, pad_to=b_pad,
         )
-        if packed is not None:
-            arrs, rs_out, hap_ext, y0, rslen, haplen = packed
-            return PackedPairHMMBatch(
-                *arrs, rs_out, hap_ext, y0, rslen, haplen, n_real, perm
-            )
+        return PackedPairHMMBatch(
+            *arrs, rs_out, hap_ext, y0, rslen, haplen, n_real, perm
+        )
     b = n_real
     if pad_lanes and b % lane_multiple:
         b += lane_multiple - b % lane_multiple
@@ -181,10 +178,10 @@ class PackedPairHMMQuals:
     """Byte-plane packing for device-side coefficient computation.
 
     The 8 fp32 coefficient planes of PackedPairHMMBatch are pure
-    per-base table lookups (ctx.transitions/emissions), so the device
-    can compute them from the raw qual bytes — uploading 5 uint8 planes
-    (~1/8 the bytes of the fp32 coefficients) and gathering from the
-    128-entry ph2pr / triangular matchToMatch tables in HBM.
+    per-base functions of the quals (ctx.transitions/emissions), so the
+    device computes them from the raw qual bytes (kernel.expand_quals) —
+    the host uploads 5 uint8 planes, ~1/8 the bytes of the fp32
+    coefficients.
     """
 
     q: np.ndarray  # (R, B) uint8
@@ -236,43 +233,13 @@ def pack_pairhmm_quals(
     b = n_real
     if pad_lanes and b % lane_multiple:
         b += lane_multiple - b % lane_multiple
-    # native memcpy/transpose packer (bit-identical to the loop below,
-    # asserted in tests) — the Python per-pair loop is the measured
-    # engine-e2e bottleneck at large batches (PERF_NOTES host/runtime)
+    # native memcpy/transpose packer: a per-pair Python loop is the
+    # engine-e2e bottleneck at large batches
     from acc_genomics_tpu import native
 
-    packed = native.pairhmm_pack_quals_native(
+    q, i_, d, c, rs, hap_ext, rslen, haplen = native.pairhmm_pack_quals_native(
         testcases, rows, cols, HAP_PAD, pad_to=b
     )
-    if packed is not None:
-        q, i_, d, c, rs, hap_ext, rslen, haplen = packed
-        return PackedPairHMMQuals(
-            q, i_, d, c, rs, hap_ext, rslen, haplen, n_real, perm
-        )
-    shape = (rows, b)
-    q = np.zeros(shape, np.uint8)
-    i_ = np.zeros(shape, np.uint8)
-    d = np.zeros(shape, np.uint8)
-    c = np.zeros(shape, np.uint8)
-    rs = np.zeros(shape, np.uint8)
-    hap_ext = np.full((rows + cols, b), HAP_PAD, np.uint8)
-    rslen = np.zeros(b, np.int32)
-    haplen = np.zeros(b, np.int32)
-    for k, tc in enumerate(testcases):
-        r = len(tc["rs"])
-        h = len(tc["hap"])
-        if r >= rows:
-            raise ValueError(f"read length {r} needs bucket > {rows} rows")
-        if h > cols:
-            raise ValueError(f"hap length {h} exceeds bucket cols {cols}")
-        q[:r, k] = tc["q"]
-        i_[:r, k] = tc["i"]
-        d[:r, k] = tc["d"]
-        c[:r, k] = tc["c"]
-        rs[:r, k] = tc["rs"]
-        hap_ext[:h, k] = tc["hap"]
-        rslen[k] = r
-        haplen[k] = h
     return PackedPairHMMQuals(
         q, i_, d, c, rs, hap_ext, rslen, haplen, n_real, perm
     )

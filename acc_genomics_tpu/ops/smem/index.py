@@ -6,8 +6,9 @@ Replaces the reference's external dependency on libbwa's ``bwa_idx_load``
 * the indexed text is forward + reverse-complement of the genome (the
   bidirectional-BWT convention BWA uses, so one index serves both
   strands and ``x[1]`` tracks the complement interval),
-* the suffix array is built by prefix doubling (NumPy, O(n log^2 n));
-  the C++ SA-IS builder in native/ handles large genomes,
+* the suffix array is built by the C++ SA-IS code in native/
+  (linear time); ``_suffix_array`` is the plain NumPy prefix-doubling
+  reference it is tested against,
 * ``primary`` is the BWT row of the full-text suffix (where the virtual
   sentinel would be); the stored BWT skips it, exactly like BWA's
   bwt_t, so occ(k) applies ``k -= (k >= primary)``,
@@ -87,8 +88,6 @@ class FMIndex:
         from acc_genomics_tpu import native
 
         sa_inner = native.suffix_array(text)  # linear-time SA-IS (C++)
-        if sa_inner is None:
-            sa_inner = _suffix_array(text)  # NumPy fallback
         # full SA over n+1 rotations with sentinel: sentinel suffix (empty)
         # sorts first -> row 0; remaining rows follow sa_inner order
         sa = np.empty(n + 1, dtype=np.int64)

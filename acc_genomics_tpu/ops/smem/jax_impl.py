@@ -1,8 +1,8 @@
 """Batched on-device SMEM collection.
 
-TPU redesign of the reference's 7-stage FPGA dataflow (smem/device/
+Device redesign of the reference's 7-stage FPGA dataflow (smem/device/
 smem.cpp: input_dup -> fe/afe -> be -> lfe -> lbe -> output, arbitrated
-by a bwt_manager DRAM engine): on TPU the "stages" collapse into one
+by a bwt_manager DRAM engine): on the device the "stages" collapse into one
 vmapped program — each read is a lane, every BWT probe is a 32-byte
 gather (occ checkpoint + 2-bit packed words, popcount via
 lax.population_count), and the reference's 16-read address/data

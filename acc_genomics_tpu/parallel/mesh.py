@@ -8,7 +8,7 @@ client/daemon offload + per-bank data replication (SURVEY.md §2.6):
   Blaze worker tiling.
 * axis "seq": haplotype/target columns are sharded — the analog of the
   reference's segmentation of oversized haps (PairHMMFpga.cpp:284-332),
-  turned into true sequence parallelism with ICI collectives.
+  turned into true sequence parallelism with collectives.
 
 Read-only reference data (FM-index, pac) is replicated per device, as
 the reference replicates the BWT per DRAM bank (smem/host/ocl.cpp).

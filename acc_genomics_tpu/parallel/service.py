@@ -1,6 +1,6 @@
 """Engine service: client/daemon offload over TCP.
 
-The TPU-native replacement for the reference's Blaze layer
+The device-side replacement for the reference's Blaze layer
 (pairhmm/client/* + pairhmm/task/*): an application process serialises
 batches to a daemon that owns the accelerator; the daemon keeps
 device-resident state (the FM-index scratch-cache analog) across
@@ -10,10 +10,13 @@ reachable (PairHMMClient::compute, pairhmm/client/PairHMMClient.cpp:69-85).
 Wire format: one frame per message —
     u32 opcode | u64 payload length | payload
 payload = npz archive of named numpy arrays (allow_pickle=False both
-ways; no code crosses the wire).  In production multi-host TPU setups
-jax.distributed owns cross-host collectives; this service covers the
-reference's other topology — remote CPU clients feeding an accelerator
-daemon.
+ways; no code crosses the wire).  In multi-host setups jax.distributed
+owns cross-host collectives; this service covers the reference's other
+topology — remote CPU clients feeding an accelerator daemon.
+
+The daemon owns its card: it is the one JAX process on that GPU (a JAX
+process reserves most of the card's memory when it starts, so a second
+one would fail), and clients never import JAX against the same card.
 """
 
 from __future__ import annotations

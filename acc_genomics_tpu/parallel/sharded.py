@@ -2,7 +2,8 @@
 
 * ``pairhmm_forward_dp``: batch lanes sharded over "data"; no
   communication at all (pairs are independent) — the throughput path,
-  replacing the reference's Blaze tiling across FPGA workers.
+  replacing the reference's Blaze tiling across FPGA workers.  Each
+  shard runs the XLA row scan or the Pallas wavefront kernel.
 
 * ``pairhmm_forward_dpsp``: additionally shards haplotype columns over
   "seq".  The row scan then needs three collectives per row:
@@ -14,7 +15,7 @@
       within-row Y recurrence y[c] = a[c] + b * y[c-1]; shard k's
       carry-in is the left-to-right composition of aggregates 0..k-1.
   This is true sequence parallelism for a linear-recurrence DP — the
-  ICI-native replacement for the reference's host-side segmentation of
+  collective-based replacement for the reference's host-side segmentation of
   oversized haplotypes (pairhmm/host/PairHMMFpga.cpp:284-332).
 """
 
@@ -24,6 +25,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from acc_genomics_tpu.ops.pairhmm.jax_impl import pairhmm_forward, _linear_scan
@@ -36,42 +38,25 @@ from acc_genomics_tpu.utils.convert import BASE_N, HAP_PAD
 
 
 @functools.lru_cache(maxsize=None)
-def _dp_fn(mesh: Mesh):
+def _dp_fn(mesh: Mesh, kernel: str, interpret: bool):
     spec_rb = P(None, "data")
     spec_b = P("data")
-    return jax.jit(jax.shard_map(
-        pairhmm_forward,
-        mesh=mesh,
-        in_specs=(spec_rb,) * 10 + (spec_b,),
-        out_specs=spec_b,
-    ))
-
-
-def pairhmm_forward_dp(mesh: Mesh, *packed_arrays):
-    """Data-parallel forward: shard the lane axis over "data".
-
-    packed_arrays are the time-major arrays of pack.py; the batch must
-    divide by the data-axis size.
-    """
-    return _dp_fn(mesh)(*packed_arrays)
-
-
-@functools.lru_cache(maxsize=None)
-def _dp_pallas_fn(mesh: Mesh, interpret: bool = False):
+    if kernel == "xla":
+        return jax.jit(jax.shard_map(
+            pairhmm_forward,
+            mesh=mesh,
+            in_specs=(spec_rb,) * 10 + (spec_b,),
+            out_specs=spec_b,
+        ))
     from acc_genomics_tpu.ops.pairhmm.kernel import pairhmm_forward_pallas
 
-    spec_rb = P(None, "data")
-    spec_b = P("data")
-
     def local(*args):
-        *arrs, bd = args
-        return pairhmm_forward_pallas(*arrs, block_diags=bd,
-                                      interpret=interpret)
+        return pairhmm_forward_pallas(*args, interpret=interpret)
 
     return jax.jit(jax.shard_map(
         local,
         mesh=mesh,
-        in_specs=(spec_rb,) * 10 + (spec_b, spec_b),
+        in_specs=(spec_rb,) * 10 + (spec_b,) * 3,
         out_specs=spec_b,
         # pallas_call outputs carry no varying-mesh-axes annotation; the
         # kernel is purely per-shard, so vma checking adds nothing here
@@ -79,12 +64,52 @@ def _dp_pallas_fn(mesh: Mesh, interpret: bool = False):
     ))
 
 
-def pairhmm_forward_dp_pallas(mesh: Mesh, *packed_arrays, block_diags,
-                              interpret: bool = False):
-    """Data-parallel Pallas forward: each device runs the diagonal kernel
-    on its lane shard; per-block trip counts shard with the lanes.  The
-    batch must divide by 128 x data-axis size."""
-    return _dp_pallas_fn(mesh, interpret)(*packed_arrays, block_diags)
+def pairhmm_forward_dp(mesh: Mesh, *packed_arrays, rslen=None, haplen=None,
+                       kernel: str = "xla", interpret: bool = False):
+    """Data-parallel forward: shard the lane axis over "data".
+
+    packed_arrays are the time-major arrays of pack.py; the batch must
+    divide by the data-axis size (and, for ``kernel="pallas"``, each
+    shard by the kernel's block).  The Pallas kernel also takes the
+    per-lane read / haplotype lengths.
+    """
+    if kernel == "xla":
+        return _dp_fn(mesh, kernel, False)(*packed_arrays)
+    return _dp_fn(mesh, kernel, interpret)(*packed_arrays, rslen, haplen)
+
+
+@functools.partial(
+    jax.jit, static_argnames=("mesh", "initial_constant", "kernel")
+)
+def pairhmm_forward_dp_from_quals(
+    mesh: Mesh, q, i, d, c, rs, hap_ext, rslen, haplen,
+    initial_constant: float, kernel: str = "xla",
+):
+    """Data-parallel forward from lane-sharded byte planes (the arrays of
+    ``PackedPairHMMQuals``, placed by :func:`shard_lanes`): each device
+    expands its own lanes' coefficients (the expansion is elementwise
+    over lanes, so no data moves) and runs :func:`pairhmm_forward_dp`."""
+    from acc_genomics_tpu.ops.pairhmm.kernel import expand_quals
+
+    planes, rs, hap_ext, y0 = expand_quals(
+        q, i, d, c, rs, hap_ext, rslen, haplen, jnp.float32(initial_constant)
+    )
+    return pairhmm_forward_dp(
+        mesh, *planes, rs, hap_ext, y0, rslen=rslen, haplen=haplen,
+        kernel=kernel,
+    )
+
+
+def shard_lanes(mesh: Mesh, arrays):
+    """Place host arrays on the mesh with their last (lane) axis split
+    over "data", so each device receives only its shard."""
+    from jax.sharding import NamedSharding
+
+    out = []
+    for a in arrays:
+        spec = P(*([None] * (np.ndim(a) - 1)), "data")
+        out.append(jax.device_put(a, NamedSharding(mesh, spec)))
+    return out
 
 
 def _sp_forward_local(
@@ -195,154 +220,3 @@ def _dpsp_fn(mesh: Mesh):
         in_specs=(spec_rb,) * 9 + (spec_hb, spec_b),
         out_specs=spec_b,
     ))
-
-
-def _sp_pallas_local(C, n_chunks, interpret):
-    """Per-shard body for the Pallas DP x SP skewed chunk pipeline.
-
-    Superstep t: shard k runs band chunk c = t - k (when 0 <= c <
-    n_chunks) with the Pallas band kernel on its (C rows x hc cols)
-    slab, then ppermutes its right-edge column one shard to the right.
-    After n_chunks + n_seq - 1 supersteps every shard has finished; the
-    result is psum over "seq" of each shard's bottom-row X sum.  The
-    left neighbour's edge values are EXACT (its chunk ran a superstep
-    earlier), so no affine recomposition of the Y recurrence is needed —
-    cell arithmetic is the DP Pallas kernel's, bit for bit.
-    """
-    from acc_genomics_tpu.ops.pairhmm.band_kernel import (
-        hap_to_mask,
-        pairhmm_band_chunk,
-    )
-
-    def local(
-        p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_match, em_mis, rs,
-        hap_loc, y0,
-    ):
-        f32 = jnp.float32
-        seq_ax = "seq"
-        n_seq = jax.lax.axis_size(seq_ax)
-        my_seq = jax.lax.axis_index(seq_ax)
-        is_first = my_seq == 0
-        right_perm = [(i, (i + 1) % n_seq) for i in range(n_seq)]
-        rows, bsz = p_mm.shape
-        hc = hap_loc.shape[0]
-        coef = jnp.stack(
-            [p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_match, em_mis]
-        ).astype(f32)
-        rs_i = rs.astype(jnp.int32)
-        hm = hap_to_mask(hap_loc.astype(jnp.int32))
-        y0f = y0.astype(f32)
-        zrow = (y0f * 0.0)[None, :]
-
-        T = n_chunks + n_seq - 1
-        zC = jnp.zeros((C, bsz), f32) + zrow
-        zhc = jnp.zeros((hc, bsz), f32) + zrow
-
-        def step(t, carry):
-            (bot_m, bot_x, bot_s, recv_m, recv_y, recv_s,
-             pl_m, pl_y, pl_s, res) = carry
-            c = jnp.clip(t - my_seq, 0, n_chunks - 1)
-            active = (t >= my_seq) & (t - my_seq < n_chunks)
-
-            # left-edge streams: shard 0 sees the virtual column -1
-            # (all zero; S corner is y0 for chunk 0 only), others the
-            # neighbour packet rows cC-1 .. cC+C-1
-            em_0 = jnp.where(is_first, zrow, pl_m)
-            ey_0 = jnp.where(is_first, zrow, pl_y)
-            es_0 = jnp.where(
-                is_first, jnp.where(c == 0, y0f[None, :], zrow), pl_s
-            )
-            e_m = jnp.concatenate([em_0, jnp.where(is_first, zC, recv_m)])
-            e_y = jnp.concatenate([ey_0, jnp.where(is_first, zC, recv_y)])
-            e_s = jnp.concatenate([es_0, jnp.where(is_first, zC, recv_s)])
-
-            # top streams: position k = my previous chunk's bottom row at
-            # column k-1.  Position 0 (the corner) is shadowed by the
-            # left-edge injection at t=0, so a zero row suffices.
-            pm = jnp.concatenate([zrow, bot_m])
-            px = jnp.concatenate([zrow, bot_x])
-            ps = jnp.concatenate([zrow, bot_s])
-
-            z32 = jnp.int32(0)
-            crows = jax.lax.dynamic_slice(
-                coef, (z32, (c * C).astype(jnp.int32), z32), (8, C, bsz)
-            )
-            rrows = jax.lax.dynamic_slice(
-                rs_i, ((c * C).astype(jnp.int32), z32), (C, bsz)
-            )
-            nb_m, nb_x, nb_s, re_m, re_y, re_s = pairhmm_band_chunk(
-                crows, rrows, hm, pm, px, ps, e_m, e_y, e_s,
-                interpret=interpret,
-            )
-
-            def keep(new, old):
-                return jnp.where(active, new, old)
-
-            bot_m2 = keep(nb_m, bot_m)
-            bot_x2 = keep(nb_x, bot_x)
-            bot_s2 = keep(nb_s, bot_s)
-            res2 = jnp.where(
-                active & (t - my_seq == n_chunks - 1),
-                nb_x.sum(axis=0),
-                res,
-            )
-
-            got_m = jax.lax.ppermute(re_m, seq_ax, right_perm)
-            got_y = jax.lax.ppermute(re_y, seq_ax, right_perm)
-            got_s = jax.lax.ppermute(re_s, seq_ax, right_perm)
-            # roll (prev_last, recv) only when the arriving packet is a
-            # real chunk of the LEFT neighbour (shard my_seq-1 active at t)
-            upd = (t >= my_seq - 1) & (t - my_seq + 1 < n_chunks)
-            pl_m2 = jnp.where(upd, recv_m[-1:], pl_m)
-            pl_y2 = jnp.where(upd, recv_y[-1:], pl_y)
-            pl_s2 = jnp.where(upd, recv_s[-1:], pl_s)
-            recv_m2 = jnp.where(upd, got_m, recv_m)
-            recv_y2 = jnp.where(upd, got_y, recv_y)
-            recv_s2 = jnp.where(upd, got_s, recv_s)
-            return (bot_m2, bot_x2, bot_s2, recv_m2, recv_y2, recv_s2,
-                    pl_m2, pl_y2, pl_s2, res2)
-
-        init = (
-            zhc, zhc, zhc + y0f[None, :],          # chunk-0 top: S = y0
-            zC, zC, zC.at[-1].set(y0f),            # init recv (S last = y0)
-            zrow, zrow, zrow + y0f[None, :],       # prev-last (edge row -1)
-            y0f * 0.0,                             # result accumulator
-        )
-        out = jax.lax.fori_loop(0, T, step, init)
-        return jax.lax.psum(out[-1], seq_ax)
-
-    return local
-
-
-@functools.lru_cache(maxsize=None)
-def _dpsp_pallas_fn(mesh: Mesh, C: int, n_chunks: int, interpret: bool):
-    spec_rb = P(None, "data")
-    spec_hb = P("seq", "data")
-    spec_b = P("data")
-    return jax.jit(jax.shard_map(
-        _sp_pallas_local(C, n_chunks, interpret),
-        mesh=mesh,
-        in_specs=(spec_rb,) * 9 + (spec_hb, spec_b),
-        out_specs=spec_b,
-        check_vma=False,
-    ))
-
-
-def pairhmm_forward_dpsp_pallas(
-    mesh: Mesh, *packed_arrays, C: int = 8, interpret: bool = False
-):
-    """DP x SP forward with the Pallas band kernel as the local body
-    (skewed chunk pipeline; see _sp_pallas_local).  packed_arrays as
-    pack.py (time-major).  rows must divide by C (a multiple of 8), hap
-    columns by the seq-axis size, batch by 128 x data-axis size."""
-    (p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_m, em_x, rs, hap_ext, y0) = (
-        packed_arrays
-    )
-    rows = p_mm.shape[0]
-    cols = hap_ext.shape[0] - rows
-    if rows % C:
-        raise ValueError(f"rows {rows} must divide by chunk size {C}")
-    hap = hap_ext[:cols]
-    return _dpsp_pallas_fn(mesh, C, rows // C, interpret)(
-        p_mm, p_gapm, p_mx, p_xx, p_my, p_yy, em_m, em_x, rs, hap, y0
-    )

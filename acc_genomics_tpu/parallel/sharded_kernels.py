@@ -24,7 +24,6 @@ from acc_genomics_tpu.ops.extend.reference import (
 )
 from acc_genomics_tpu.ops.smem.machine import smem_collect_machine
 from acc_genomics_tpu.ops.smem.reference import DEFAULT_SMEM_PARAMS, SmemParams
-from acc_genomics_tpu.ops.sw.jax_impl import sw_fill
 from acc_genomics_tpu.ops.sw.reference import DEFAULT_SW_PARAMS, SWParams
 
 
@@ -131,52 +130,26 @@ def sw_extend_dp(mesh: Mesh, q_tm, t_tm, qlen, tlen, h0, max_ins, max_del,
 
 
 @functools.lru_cache(maxsize=None)
-def _sw_device_dp_fn(mesh: Mesh, strategy: int, params: SWParams,
-                     interpret: bool):
-    from acc_genomics_tpu.ops.sw.kernel import sw_fill_pallas
-    from acc_genomics_tpu.ops.sw.walker import sw_walk_device
+def _sw_device_dp_fn(mesh: Mesh, strategy: int, params: SWParams):
+    from acc_genomics_tpu.ops.sw.walker import sw_align_device
 
-    def local(r, a, rl, al, bd):
-        btr, lr, ac = sw_fill_pallas(
-            r, a, rl, al, strategy, block_diags=bd, params=params,
-            interpret=interpret,
-        )
-        return sw_walk_device(btr, lr, ac, rl, al, strategy)
+    def local(r, a, rl, al):
+        return sw_align_device(r, a, rl, al, strategy, params)
 
     return jax.jit(jax.shard_map(
         local,
         mesh=mesh,
-        in_specs=(P(None, "data"), P(None, "data"), P("data"), P("data"), P("data")),
-        out_specs=P(None, "data"),
-        check_vma=False,  # pallas outputs carry no vma annotation
-    ))
-
-
-def sw_device_dp(mesh: Mesh, ref_tm, alt_ext, reflen, altlen, strategy: int,
-                 block_diags, params: SWParams = DEFAULT_SW_PARAMS,
-                 interpret: bool = False):
-    """Full SW device path (Pallas fill + device walker) sharded over
-    "data"; returns the walker's packed element buffer, lane-sharded.
-    interpret=True runs the Pallas fill in interpret mode (CPU meshes)."""
-    return _sw_device_dp_fn(mesh, strategy, params, interpret)(
-        ref_tm, alt_ext, reflen, altlen, block_diags
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def _sw_fill_dp_fn(mesh: Mesh, strategy: int, params: SWParams):
-    def body(r, a, rl, al):
-        return sw_fill(r, a, rl, al, strategy, params)
-
-    return jax.jit(jax.shard_map(
-        body,
-        mesh=mesh,
         in_specs=(P(None, "data"), P(None, "data"), P("data"), P("data")),
-        out_specs=(P(None, None, "data"), P(None, "data"), P(None, "data")),
+        out_specs=P(None, "data"),
+        # the walker's loop carries start as shard-invariant constants
+        check_vma=False,
     ))
 
 
-def sw_fill_dp(mesh: Mesh, ref_tm, alt_tm, reflen, altlen, strategy: int,
-               params: SWParams = DEFAULT_SW_PARAMS):
-    """HTC-SW fill, pairs sharded over "data"; backtrack stays host-side."""
-    return _sw_fill_dp_fn(mesh, strategy, params)(ref_tm, alt_tm, reflen, altlen)
+def sw_device_dp(mesh: Mesh, ref_tm, alt_tm, reflen, altlen, strategy: int,
+                 params: SWParams = DEFAULT_SW_PARAMS):
+    """Full SW device path (XLA fill + device walker) sharded over
+    "data"; returns the walker's packed element buffer, lane-sharded."""
+    return _sw_device_dp_fn(mesh, strategy, params)(
+        ref_tm, alt_tm, reflen, altlen
+    )

@@ -1,11 +1,11 @@
 """Lightweight profiling: RAII timers with global accumulation plus a
 throughput scoreboard.
 
-The TPU equivalent of the reference's acc_lib/Timer.h PLACE_TIMER macros
+The equivalent of the reference's acc_lib/Timer.h PLACE_TIMER macros
 and the per-invocation GCUPS accounting done from OpenCL events
 (pairhmm/host/PairHMMFpga.cpp:90-96, smem/host/ocl.cpp:339-344).
-Device timing here comes from block_until_ready() walls; use
-jax.profiler for traces.
+Device timing here comes from block_until_ready() walls; device busy
+time comes from a profiler trace (utils/devtrace.py).
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ scoreboard = Scoreboard
 
 
 def device_trace(logdir: str):
-    """jax.profiler trace context: the TPU equivalent of the reference's
+    """jax.profiler trace context: the equivalent of the reference's
     SDAccel timeline traces (sdaccel.ini profile=true,timeline_trace=true).
     Usage: `with device_trace("/tmp/trace"): engine.pairhmm_matrix(...)`,
     then inspect with TensorBoard / xprof."""

@@ -53,7 +53,7 @@ def test_sw_engine_uses_config_weights():
     ref = _rand_seq(rng, 30)
     alt = np.concatenate([ref[5:20], _rand_seq(rng, 4)])
     cfg = SWConfig(w_match=50, w_mismatch=-10, w_open=-40, w_extend=-3)
-    eng = SWEngine(cfg, use_pallas=False)
+    eng = SWEngine(cfg)
     got = eng.align([ref], [alt], 0)[0]
     want = sw_align_oracle(ref, alt, 0, params=cfg.params())
     assert got == want
@@ -81,7 +81,7 @@ def test_extend_engine_uses_config_scoring():
 
     rng = np.random.default_rng(3)
     cfg = ExtendConfig(match=2, mismatch=-3, o_del=4, e_del=2, w=50)
-    eng = ExtendEngine(cfg, use_pallas=False)
+    eng = ExtendEngine(cfg)
     read = _rand_seq(rng, 60)
     rseq = np.concatenate([_rand_seq(rng, 10), read, _rand_seq(rng, 10)])
     seeds = [dict(read=read, rseq=rseq, qbeg=20, rbeg_off=30, len=15)]
@@ -101,7 +101,7 @@ def test_extend_engine_oversize_falls_back_to_host():
 
     rng = np.random.default_rng(4)
     cfg = ExtendConfig()  # caps: qlen 256, tlen 1024
-    eng = ExtendEngine(cfg, use_pallas=False)
+    eng = ExtendEngine(cfg)
     read = _rand_seq(rng, 400)  # right extension query > 256
     rseq = np.concatenate([_rand_seq(rng, 8), read, _rand_seq(rng, 8)])
     seeds = [dict(read=read, rseq=rseq, qbeg=10, rbeg_off=18, len=20)]

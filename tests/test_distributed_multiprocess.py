@@ -1,7 +1,7 @@
 """Multi-process jax.distributed run on the CPU backend.
 
 The reference tests its distributed (Blaze) path in-process over loopback
-TCP (LOCAL_BLAZE, pairhmm/host/main.cpp:253-274).  The TPU framework's
+TCP (LOCAL_BLAZE, pairhmm/host/main.cpp:253-274).  This engine's
 distributed substrate is jax.distributed + shard_map; this test stands in
 for LOCAL_BLAZE by launching two real processes that form a jax
 coordination service, build a global 2-process mesh, and run the

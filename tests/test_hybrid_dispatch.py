@@ -21,7 +21,7 @@ from acc_genomics_tpu.ops.sw.reference import sw_align_oracle
 def test_sw_mixed_oversize_batch():
     rng = np.random.default_rng(0)
     cfg = SWConfig(seq_buckets=(64, 128))  # force len > 128 to host
-    eng = SWEngine(cfg, use_pallas=False)
+    eng = SWEngine(cfg)
     refs, alts = [], []
     for k in range(8):
         rl = 200 if k % 3 == 0 else 50  # every 3rd pair oversize
@@ -40,7 +40,7 @@ def test_sw_mixed_oversize_batch():
 def test_extend_mixed_oversize_batch():
     rng = np.random.default_rng(1)
     cfg = ExtendConfig(max_qlen=64, max_tlen=128)
-    eng = ExtendEngine(cfg, use_pallas=False)
+    eng = ExtendEngine(cfg)
     seeds = []
     for k in range(6):
         rl = 150 if k % 2 == 0 else 40  # right-extension query oversize
@@ -61,7 +61,7 @@ def test_extend_mixed_oversize_batch():
 def test_pairhmm_mixed_oversize_batch():
     rng = np.random.default_rng(2)
     cfg = PairHMMConfig(read_buckets=(32, 64), hap_buckets=(128,))
-    eng = PairHMMEngine(cfg, use_pallas=False)
+    eng = PairHMMEngine(cfg)
     eng.min_device_cells = 0  # force the device path for in-bucket pairs
     tcs = []
     for k in range(6):
@@ -107,7 +107,7 @@ def test_pairhmm_oversize_hap_routes_to_sp_on_mesh():
     mesh = make_mesh((4, 2))
     rng = np.random.default_rng(5)
     cfg = PairHMMConfig(read_buckets=(32,), hap_buckets=(64,))
-    eng = PairHMMEngine(cfg, use_pallas=False, mesh=mesh)
+    eng = PairHMMEngine(cfg, mesh=mesh)
     eng.min_device_cells = 0
     tcs = []
     for hl in (50, 100, 120):  # 100/120 exceed the 64-column bucket
@@ -139,12 +139,16 @@ def test_pairhmm_oversize_hap_routes_to_sp_on_mesh():
 
 
 def test_pairhmm_oversize_hap_sp_pallas_on_mesh():
-    """Same SP routing with use_pallas=True: the engine runs the Pallas
-    band-kernel pipeline (interpret mode on the CPU mesh) for oversized
-    haps and matches the fp64 oracle within contract."""
+    """Same SP routing, with the wavefront kernel as the per-shard body of
+    the in-bucket DP launch as a GPU mesh runs it: oversized haps take the
+    XLA DP x SP path, the engine's own in-bucket pack through the Pallas
+    kernel (interpret mode on the CPU mesh) agrees with the engine's
+    answer, and all match the fp64 oracle within contract."""
     import jax
 
-    from acc_genomics_tpu.parallel import make_mesh
+    from acc_genomics_tpu.ops.pairhmm.pack import LANES, pack_pairhmm_batch
+    from acc_genomics_tpu.parallel import make_mesh, pairhmm_forward_dp
+    from acc_genomics_tpu.parallel.sharded import shard_lanes
 
     if len(jax.devices()) < 8:
         import pytest
@@ -153,8 +157,7 @@ def test_pairhmm_oversize_hap_sp_pallas_on_mesh():
     mesh = make_mesh((4, 2))
     rng = np.random.default_rng(6)
     cfg = PairHMMConfig(read_buckets=(32,), hap_buckets=(64,))
-    eng = PairHMMEngine(cfg, use_pallas=True, mesh=mesh)
-    eng._interpret = True
+    eng = PairHMMEngine(cfg, mesh=mesh)
     eng.min_device_cells = 0
     tcs = []
     for hl in (50, 100, 120):  # 100/120 exceed the 64-column bucket
@@ -174,8 +177,22 @@ def test_pairhmm_oversize_hap_sp_pallas_on_mesh():
     got = eng.compute_pairs(tcs)
     assert eng.stats.get("sp_pairs", 0) == 2
     assert eng.stats.get("host_fallback", 0) == 0
+    assert eng.stats["device_calls"] == 1  # the in-bucket DP launch
     from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
 
+    pack = pack_pairhmm_batch(
+        tcs[:1], rows=32, cols=64, dtype=np.float32, sort_by_haplen=True,
+        lane_multiple=LANES * 4,
+    )
+    args = shard_lanes(mesh, list(pack.arrays()) + [pack.rslen, pack.haplen])
+    raw = pack.unsort(np.asarray(pairhmm_forward_dp(
+        mesh, *args[:11], rslen=args[11], haplen=args[12], kernel="pallas",
+        interpret=True,
+    )))
+    pallas_log = np.log10(np.float64(raw[0])) - np.float64(
+        PairHMMContext(np.float32).log10_initial_constant
+    )
+    assert abs(pallas_log - got[0]) <= 1e-5 * abs(got[0])
     ctx64 = PairHMMContext(np.float64)
     for t, g in zip(tcs, got):
         want64 = pairhmm_oracle(
@@ -224,14 +241,9 @@ def test_calibrated_dispatch_crossover_moves_with_constants():
 def test_calibrated_dispatch_engine_routing():
     """Engine-level: installing opposite cost models routes the SAME
     batch to host vs device, both oracle-exact."""
-    import pytest
-
-    from acc_genomics_tpu import native
     from acc_genomics_tpu.engine.pairhmm_engine import DispatchCostModel
     from acc_genomics_tpu.io.synth import gen_pairhmm_pairs
 
-    if not native.available():
-        pytest.skip("native host engine unavailable")
     rng = np.random.default_rng(3)
     tcs = gen_pairhmm_pairs(rng, 12, max_read_len=40, max_hap_len=90)
     from acc_genomics_tpu.ops.pairhmm.reference import pairhmm_loglik_oracle
@@ -243,7 +255,7 @@ def test_calibrated_dispatch_engine_routing():
         for t in tcs
     ])
 
-    eng = PairHMMEngine(use_pallas=False)
+    eng = PairHMMEngine()
     eng.set_cost_model(DispatchCostModel(
         host_gcups=100.0, device_gcups=1e-3, fixed_s=10.0, link_gb_s=1e-4,
     ))
@@ -251,7 +263,7 @@ def test_calibrated_dispatch_engine_routing():
     assert eng.stats.get("host_native_calls", 0) == 1
     np.testing.assert_allclose(got, want, rtol=5e-3)
 
-    eng2 = PairHMMEngine(use_pallas=False)
+    eng2 = PairHMMEngine()
     eng2.set_cost_model(DispatchCostModel(
         host_gcups=1e-4, device_gcups=100.0, fixed_s=0.0, link_gb_s=100.0,
     ))

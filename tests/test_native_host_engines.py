@@ -8,16 +8,10 @@ oracles, which remain the behavioural contract.
 """
 
 import numpy as np
-import pytest
 
 from acc_genomics_tpu import native
 from acc_genomics_tpu.ops.extend.reference import ExtendParams, sw_extend_oracle
 from acc_genomics_tpu.ops.sw.reference import SWParams, sw_align_oracle
-
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native lib unavailable (no toolchain)"
-)
-
 
 def test_native_sw_matches_oracle_all_strategies():
     rng = np.random.default_rng(0)

@@ -10,7 +10,6 @@ host fallback, and the fp64 underflow recompute.
 import numpy as np
 import pytest
 
-from acc_genomics_tpu import native
 from acc_genomics_tpu.config import PairHMMConfig
 from acc_genomics_tpu.engine.pairhmm_engine import PairHMMEngine
 from acc_genomics_tpu.io.synth import gen_pairhmm_pairs
@@ -29,20 +28,30 @@ def _flatten(tcs):
 
 def test_flat_matches_dict_path_portable(rng):
     tcs = gen_pairhmm_pairs(rng, 96, max_read_len=40, max_hap_len=80)
+    # both paths ship byte planes and expand them on the device, so they
+    # feed the forward identical coefficients
     cfg = PairHMMConfig(read_buckets=(32, 64), hap_buckets=(64, 128))
-    a = PairHMMEngine(cfg, use_pallas=False)
+    a = PairHMMEngine(cfg)
     a.min_device_cells = 0
     want = a.compute_pairs(tcs)
-    b = PairHMMEngine(cfg, use_pallas=False)
+    b = PairHMMEngine(cfg)
     b.min_device_cells = 0
     got = b.compute_pairs_flat(*_flatten(tcs))
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
-@pytest.mark.skipif(not native.available(), reason="needs native lib")
 def test_flat_pallas_interpret_with_oversize(rng):
-    """The full flat path (native pack + Pallas kernel in interpret mode +
-    concurrent host fallback + flat fp64 recompute) vs the dict path."""
+    """The full flat path (native pack + device forward + concurrent host
+    fallback + flat fp64 recompute) vs the dict path, and the Pallas
+    wavefront kernel (interpret mode) on the very byte planes the flat
+    path uploads vs the XLA forward the CPU engine ran on them."""
+    from acc_genomics_tpu import native
+    from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
+    from acc_genomics_tpu.ops.pairhmm.kernel import (
+        pairhmm_forward_from_quals_packed,
+    )
+    from acc_genomics_tpu.utils.convert import HAP_PAD
+
     tcs = gen_pairhmm_pairs(rng, 40, max_read_len=30, max_hap_len=60)
     # oversize pair -> concurrent native host fallback
     big = dict(tcs[0])
@@ -50,16 +59,41 @@ def test_flat_pallas_interpret_with_oversize(rng):
         big[k] = np.resize(np.asarray(tcs[0][k], np.uint8), 80)
     tcs.append(big)
     cfg = PairHMMConfig(read_buckets=(32, 64), hap_buckets=(64,))
-    a = PairHMMEngine(cfg, use_pallas=False)
+    a = PairHMMEngine(cfg)
     a.min_device_cells = 0
     want = a.compute_pairs(tcs)
 
-    b = PairHMMEngine(cfg, use_pallas=True)
-    b._interpret = True
-    got = b.compute_pairs_flat(*_flatten(tcs))
+    b = PairHMMEngine(cfg)
+    flat = _flatten(tcs)
+    got = b.compute_pairs_flat(*flat)
     assert b.stats.get("host_fallback", 0) == 1
     assert b.stats["device_calls"] >= 1
     np.testing.assert_allclose(got, want, rtol=5e-3)
+
+    # the 40 in-bucket pairs in one 128-lane group, as the engine packs it
+    rs, q, i, d, c, lens, hap, hlens = flat
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    hoffs = np.concatenate([[0], np.cumsum(hlens[:-1])]).astype(np.int64)
+    g_lens, g_hlens = np.zeros(128, np.int32), np.zeros(128, np.int32)
+    g_offs, g_hoffs = np.zeros(128, np.int64), np.zeros(128, np.int64)
+    g_lens[:40], g_hlens[:40] = lens[:40], hlens[:40]
+    g_offs[:40], g_hoffs[:40] = offs[:40], hoffs[:40]
+    planes = native.pairhmm_pack_quals_flat(
+        rs, q, i, d, c, g_offs, g_lens, hap, g_hoffs, g_hlens, 32, 64,
+        HAP_PAD,
+    )
+    buf = np.concatenate(planes)
+    meta = np.stack([g_lens, g_hlens])
+    ic = float(PairHMMContext(np.float32).initial_constant)
+    fwd = {
+        kernel: np.asarray(pairhmm_forward_from_quals_packed(
+            buf, meta, rows=32, initial_constant=ic, kernel=kernel,
+            interpret=kernel == "pallas",
+        ))
+        for kernel in ("pallas", "xla")
+    }
+    np.testing.assert_allclose(fwd["pallas"], fwd["xla"], rtol=1e-5)
+    assert np.all(fwd["pallas"][:40] > 0) and np.all(fwd["pallas"][40:] == 0)
 
 
 def test_flat_stream_matches_single_calls(rng):
@@ -68,38 +102,45 @@ def test_flat_stream_matches_single_calls(rng):
         for _ in range(3)
     ]
     cfg = PairHMMConfig(read_buckets=(32, 64), hap_buckets=(64,))
-    eng = PairHMMEngine(cfg, use_pallas=False)
+    eng = PairHMMEngine(cfg)
     eng.min_device_cells = 0
     batches = [_flatten(t) for t in tcs_batches]
     got = eng.compute_pairs_flat_stream(batches)
     for b, g in zip(batches, got):
-        eng2 = PairHMMEngine(cfg, use_pallas=False)
+        eng2 = PairHMMEngine(cfg)
         eng2.min_device_cells = 0
         np.testing.assert_allclose(g, eng2.compute_pairs_flat(*b), rtol=1e-12)
 
 
-@pytest.mark.skipif(not native.available(), reason="needs native lib")
-def test_flat_f32_upload_mode_interpret(rng):
-    """upload='f32' ships precomputed coefficient planes in two packed
-    buffers (pairhmm_forward_pallas_packed_f32).  Same kernel + same
-    tables, but the coefficient arithmetic runs in C vs XLA (which
-    strength-reduces x/3 to a reciprocal multiply), so agreement is
-    1-2 ulp rather than bitwise — far inside the 5e-3 contract."""
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+def test_quals_expansion_matches_host_coefficients(rng, kernel):
+    """Coefficient planes expanded on the device from the uploaded quality
+    bytes (exp2 + the telescoped matchToMatch identity) against the host
+    packer's table lookups, through the same forward: the two agree to
+    <= 27 ulp per coefficient, so the likelihoods agree to ~1e-5, far
+    inside the 5e-3 contract."""
+    from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
+    from acc_genomics_tpu.ops.pairhmm.kernel import (
+        forward_from_pack,
+        pairhmm_forward_from_quals,
+    )
+    from acc_genomics_tpu.ops.pairhmm.pack import (
+        pack_pairhmm_batch,
+        pack_pairhmm_quals,
+    )
+
     tcs = gen_pairhmm_pairs(rng, 50, max_read_len=30, max_hap_len=60)
-    outs = {}
-    for mode in ("quals", "quals_arith", "f32"):
-        cfg = PairHMMConfig(
-            read_buckets=(32,), hap_buckets=(64,),
-            upload="f32" if mode == "f32" else "quals",
-            quals_expand="arith" if mode == "quals_arith" else "gather",
-        )
-        eng = PairHMMEngine(cfg, use_pallas=True)
-        eng._interpret = True
-        outs[mode] = eng.compute_pairs_flat(*_flatten(tcs))
-    # gather expansion uses the very same tables as the host pack:
-    # 1-2 ulp agreement
-    np.testing.assert_allclose(outs["quals"], outs["f32"], rtol=1e-6)
-    # arith expansion computes ph2pr/matchToMatch on device (exp2 + the
-    # telescoped Jacobian identity): <=27 ulp coefficient agreement, so
-    # final log-likelihoods match to ~1e-5 — far inside the 5e-3 contract
-    np.testing.assert_allclose(outs["quals_arith"], outs["f32"], rtol=2e-4)
+    interpret = kernel == "pallas"
+    host = forward_from_pack(
+        pack_pairhmm_batch(tcs, rows=32, cols=64, dtype=np.float32),
+        kernel, interpret=interpret,
+    )
+    qp = pack_pairhmm_quals(tcs, rows=32, cols=64)
+    dev = pairhmm_forward_from_quals(
+        qp.q, qp.i, qp.d, qp.c, qp.rs, qp.hap_ext, qp.rslen, qp.haplen,
+        np.float32(PairHMMContext(np.float32).initial_constant),
+        kernel=kernel, interpret=interpret,
+    )
+    host, dev = np.asarray(host)[:50], np.asarray(dev)[:50]
+    assert np.all(host > 0)
+    np.testing.assert_allclose(np.log10(dev), np.log10(host), rtol=2e-4)

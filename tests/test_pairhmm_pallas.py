@@ -1,10 +1,10 @@
-"""Pallas diagonal kernel vs oracle (interpret mode on CPU)."""
+"""Pallas wavefront kernel vs oracle (interpret mode on CPU)."""
 
 import numpy as np
 
 from acc_genomics_tpu.io.synth import gen_pairhmm_pairs
 from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
-from acc_genomics_tpu.ops.pairhmm.kernel import forward_from_pack_pallas
+from acc_genomics_tpu.ops.pairhmm.kernel import forward_from_pack
 from acc_genomics_tpu.ops.pairhmm.pack import pack_pairhmm_batch
 from acc_genomics_tpu.ops.pairhmm.reference import pairhmm_loglik_oracle
 
@@ -21,7 +21,7 @@ def _oracle_logs(tcs):
 
 
 def _kernel_logs(pack):
-    res = np.asarray(forward_from_pack_pallas(pack, interpret=True))
+    res = np.asarray(forward_from_pack(pack, "pallas", interpret=True))
     ctx = PairHMMContext(np.float32)
     return np.log10(res.astype(np.float64)) - np.float64(ctx.log10_initial_constant)
 
@@ -46,10 +46,10 @@ def test_pallas_batch_not_multiple_of_lanes(rng):
     tcs = gen_pairhmm_pairs(rng, 5, max_read_len=7, max_hap_len=9)
     pack = pack_pairhmm_batch(tcs, rows=8, cols=16, dtype=np.float32, pad_lanes=False)
     try:
-        forward_from_pack_pallas(pack, interpret=True)
+        forward_from_pack(pack, "pallas", interpret=True)
         assert False, "expected ValueError"
     except ValueError as e:
-        assert "multiple of 128" in str(e)
+        assert "multiple of 32" in str(e)
 
 
 def test_packer_lane_padding_inert(rng):
@@ -57,24 +57,23 @@ def test_packer_lane_padding_inert(rng):
     tcs = gen_pairhmm_pairs(rng, 5, max_read_len=7, max_hap_len=9)
     pack = pack_pairhmm_batch(tcs, rows=8, cols=16, dtype=np.float32)
     assert pack.batch == 128 and pack.n_real == 5
-    res = np.asarray(forward_from_pack_pallas(pack, interpret=True))
+    res = np.asarray(forward_from_pack(pack, "pallas", interpret=True))
     assert np.all(res[5:] == 0.0)
     assert np.all(res[:5] > 0.0)
 
 
 def test_pallas_sorted_pack_block_diags(rng):
-    """Sorted packing + per-block dynamic diagonal bounds == input order."""
+    """Sorted packing + per-block trip counts (each block of 32 lanes
+    runs only its own longest read and haplotype) == input order."""
     tcs = gen_pairhmm_pairs(rng, 260, max_read_len=15, max_hap_len=30)
     pack = pack_pairhmm_batch(
         tcs, rows=16, cols=32, dtype=np.float32, sort_by_haplen=True
     )
     assert pack.perm is not None and pack.batch == 384
-    # blocks are tight: first block's bound >= last block's
-    from acc_genomics_tpu.ops.pairhmm.kernel import block_diag_counts
-
-    bd = block_diag_counts(pack)
-    assert bd.shape == (3,) and bd[0] >= bd[-1]
-    res = np.asarray(forward_from_pack_pallas(pack, interpret=True))
+    # blocks are tight: the first block's longest haplotype >= the last's
+    hl = pack.haplen.reshape(-1, 32).max(axis=1)
+    assert hl[0] >= hl[-1] and hl[-1] == 0  # the tail blocks are padding
+    res = np.asarray(forward_from_pack(pack, "pallas", interpret=True))
     got = pack.unsort(res)
     want_logs = _oracle_logs(tcs)
     ctx = PairHMMContext(np.float32)
@@ -89,23 +88,18 @@ def test_pallas_from_quals_matches_oracle(rng):
     import numpy as np
     from acc_genomics_tpu.io.synth import gen_pairhmm_pairs
     from acc_genomics_tpu.ops.pairhmm.context import PairHMMContext
-    from acc_genomics_tpu.ops.pairhmm.kernel import (
-        block_diag_counts,
-        pairhmm_forward_pallas_from_quals,
-    )
+    from acc_genomics_tpu.ops.pairhmm.kernel import pairhmm_forward_from_quals
     from acc_genomics_tpu.ops.pairhmm.pack import pack_pairhmm_quals
     from acc_genomics_tpu.ops.pairhmm.reference import pairhmm_loglik_oracle
 
     tcs = gen_pairhmm_pairs(rng, 24, max_read_len=46, max_hap_len=96)
     pack = pack_pairhmm_quals(tcs, rows=48, cols=96, sort_by_haplen=True)
     ctx = PairHMMContext(np.float32)
-    res = pairhmm_forward_pallas_from_quals(
+    res = pairhmm_forward_from_quals(
         pack.q, pack.i, pack.d, pack.c, pack.rs, pack.hap_ext,
         pack.rslen, pack.haplen,
-        ctx.ph2pr.astype(np.float32),
-        ctx.match_to_match.astype(np.float32),
         np.float32(ctx.initial_constant),
-        block_diags=block_diag_counts(pack),
+        kernel="pallas",
         interpret=True,
     )
     got = pack.unsort(np.asarray(res))

@@ -40,33 +40,36 @@ def test_dpsp_matches_single(rng):
 
 
 @needs_8
-def test_dpsp_pallas_matches_single(rng):
-    """The Pallas band-kernel SP pipeline (skewed chunks + ppermuted
-    edges) matches the single-device forward on a 2x4 mesh."""
-    from acc_genomics_tpu.parallel.sharded import pairhmm_forward_dpsp_pallas
-
-    pack = _pack(rng, 256, rows=16, cols=32)  # 128 lanes per data shard
-    mesh = make_mesh((2, 4))
+def test_dp_pallas_matches_single(rng):
+    """The wavefront kernel as the per-shard body of the DP forward
+    (interpret mode on the CPU mesh) matches the single-device XLA
+    forward."""
+    pack = _pack(rng, 256, rows=16, cols=32)
+    mesh = make_mesh((8, 1))
     import jax.numpy as jnp
     args = [jnp.asarray(v) for v in pack.arrays()]
-    got = np.asarray(pairhmm_forward_dpsp_pallas(mesh, *args, interpret=True))
+    got = np.asarray(pairhmm_forward_dp(
+        mesh, *args, rslen=jnp.asarray(pack.rslen),
+        haplen=jnp.asarray(pack.haplen), kernel="pallas", interpret=True,
+    ))
     want = np.asarray(forward_from_pack(pack))
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 @needs_8
-def test_dpsp_pallas_seq_only_multichunk(rng):
-    """Seq-only mesh (1x8) with several row chunks per shard — exercises
-    the full skew depth and the prev-last edge handoff."""
-    from acc_genomics_tpu.parallel.sharded import pairhmm_forward_dpsp_pallas
+def test_shard_lanes_places_each_shard_on_its_device(rng):
+    """Engine inputs go straight to their shards: no array is staged
+    whole on one device first."""
+    from acc_genomics_tpu.parallel.sharded import shard_lanes
 
-    pack = _pack(rng, 128, rows=24, cols=64)
-    mesh = make_mesh((1, 8))
-    import jax.numpy as jnp
-    args = [jnp.asarray(v) for v in pack.arrays()]
-    got = np.asarray(pairhmm_forward_dpsp_pallas(mesh, *args, interpret=True))
-    want = np.asarray(forward_from_pack(pack))
-    np.testing.assert_allclose(got, want, rtol=1e-5)
+    pack = _pack(rng, 256)
+    mesh = make_mesh((4, 2))
+    a2, a1 = shard_lanes(mesh, [pack.p_mm, pack.y0])
+    for a in (a2, a1):
+        shards = a.addressable_shards
+        assert len({s.device for s in shards}) == 8
+        assert all(s.data.shape[-1] == pack.batch // 4 for s in shards)
+    np.testing.assert_array_equal(np.asarray(a2), pack.p_mm)
 
 
 @needs_8

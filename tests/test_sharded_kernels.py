@@ -11,7 +11,7 @@ from acc_genomics_tpu.parallel import make_mesh
 from acc_genomics_tpu.parallel.sharded_kernels import (
     smem_collect_dp,
     sw_extend_dp,
-    sw_fill_dp,
+    sw_device_dp,
 )
 
 
@@ -124,17 +124,20 @@ def test_extend_dp_matches_single(rng):
 
 
 def test_sw_fill_dp_matches_single(rng):
-    from acc_genomics_tpu.ops.sw.jax_impl import sw_fill
+    """The SW device path (XLA fill + device walker) sharded over "data"
+    returns the single-device element buffers exactly."""
+    from acc_genomics_tpu.ops.sw.walker import sw_align_device
 
-    B, R, C = 8, 24, 32
-    ref = rng.integers(0, 4, (R, B)).astype(np.int32)
-    alt = rng.integers(0, 4, (C, B)).astype(np.int32)
-    rl = np.full(B, R, np.int32)
-    al = np.full(B, C, np.int32)
+    B, R, C = 16, 24, 32
+    ref = rng.integers(0, 4, (R, B)).astype(np.uint8)
+    alt = ref[:C].copy() if C <= R else np.resize(ref, (C, B))
+    mut = rng.random(alt.shape) < 0.15
+    alt[mut] = (alt[mut] + 1) % 4
+    rl = rng.integers(R // 2, R + 1, B).astype(np.int32)
+    al = rng.integers(C // 2, C + 1, B).astype(np.int32)
     a = [jnp.asarray(v) for v in (ref, alt, rl, al)]
-    bt1, lr1, ac1 = sw_fill(*a, 0)
     mesh = make_mesh((8, 1))
-    bt8, lr8, ac8 = sw_fill_dp(mesh, *a, 0)
-    assert np.array_equal(np.asarray(bt1), np.asarray(bt8))
-    assert np.array_equal(np.asarray(lr1), np.asarray(lr8))
-    assert np.array_equal(np.asarray(ac1), np.asarray(ac8))
+    for strategy in range(4):
+        one = np.asarray(sw_align_device(*a, strategy))
+        dp = np.asarray(sw_device_dp(mesh, *a, strategy))
+        assert np.array_equal(one, dp), strategy
